@@ -23,7 +23,7 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -34,7 +34,7 @@ from piqp_tpu.hostsparse import solve_sparse_host
 from piqp_tpu.utils.io import load_mat
 
 DATA = "/root/reference/tests/data"
-OUT = "/root/repo/benchmarks/corpus_report.json"
+OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "corpus_report.json")
 
 SUITES = [
     ("maros_meszaros", DATA + "/maros_meszaros", Settings(),

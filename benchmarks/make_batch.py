@@ -3,7 +3,7 @@ size) and write it as the flat binary consumed by benchmarks/ref_driver.cpp.
 
 The SAME generator (piqp_tpu.utils.random.dense_strongly_convex_qp, seeds
 base_seed..base_seed+B-1) is used by the JAX side (bench.py), so the
-reference solver and the TPU solver race on identical problem data.
+reference solver and the JAX solver race on identical problem data.
 Mirrors the reference harness dimensions
 (benchmarks/src/dense_sparse_solver_benchmark.cpp:17-56: n_eq = n_ineq =
 dim/2).
@@ -12,11 +12,12 @@ dim/2).
 from __future__ import annotations
 
 import struct
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 from piqp_tpu.utils.random import dense_strongly_convex_qp  # noqa: E402
 
 PIQP_INF = 1e30

@@ -4,7 +4,7 @@ problems (SparseSolver.DENSE_ROUTING_MAX_N, sparse.py).
 The reference solves every corpus instance through one sparse LDL^T
 (/root/reference/tests/src/sparse/maros_meszaros_tests.cpp:22-36); we route
 by size instead (SURVEY.md section 7 design delta 3): small/medium sparse
-problems densify onto the MXU's condensed Cholesky, large ones stay on the
+problems densify onto the device's condensed Cholesky, large ones stay on the
 host sparse backend.  This script measures BOTH routes on a ladder of real
 Maros-Meszaros instances spanning n = 649..3873 and reports the measured
 crossover, so the routing default is evidence, not folklore
@@ -26,17 +26,19 @@ Prints one JSON line per instance plus a summary line.
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import numpy as np
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/tests/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from piqp_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from piqp_tpu import Settings, Status, solve_dense
 from piqp_tpu.hostsparse import solve_sparse_host
@@ -117,7 +119,8 @@ def main():
         host_wins=sorted(r["n"] for r in results if r["winner"] == "host"),
     )
     print(json.dumps(summary), flush=True)
-    with open("/root/repo/benchmarks/routing_crossover.json", "w") as f:
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "routing_crossover.json"), "w") as f:
         json.dump(dict(instances=results, **summary), f, indent=1)
 
 

@@ -30,7 +30,7 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 flags = os.environ.get("XLA_FLAGS", "")
@@ -46,8 +46,9 @@ try:
     jax.config.update("jax_platforms", "cpu")
 except Exception:
     pass
-jax.config.update("jax_compilation_cache_dir", "/root/repo/tests/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from piqp_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as PS
 

@@ -17,18 +17,20 @@ Prints one JSON line.
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/tests/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from piqp_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from piqp_tpu import Settings, Status
 from piqp_tpu.batch import (
@@ -38,6 +40,10 @@ from benchmarks.make_batch import batch_problems
 
 
 def main():
+    if jax.devices()[0].platform != "gpu":
+        print("sqp_fused_bench: needs a GPU, found " + jax.devices()[0].platform,
+              file=sys.stderr)
+        sys.exit(1)
     dim = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     B = int(sys.argv[2]) if len(sys.argv) > 2 else 128
     rounds = int(sys.argv[3]) if len(sys.argv) > 3 else 16

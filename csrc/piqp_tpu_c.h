@@ -1,10 +1,10 @@
 /* piqp_tpu C interface.
  *
- * C-callable surface over the TPU-native solver — full-parity analog of the
+ * C-callable surface over the JAX solver — full-parity analog of the
  * reference's C interface (/root/reference/interfaces/c/include/piqp.h:21-43
  * function surface; piqp_typedef.h:27-196 data/settings/info structs define
  * the shape being mirrored).  This is a fresh implementation embedding the
- * Python runtime, since Python is the host language of the TPU framework
+ * Python runtime, since Python is the host language of the JAX framework
  * the way C++ is the reference's.
  *
  * Threading: calls must come from one thread (the embedded interpreter
@@ -81,15 +81,15 @@ typedef enum {
     PIQP_TPU_SPARSE_LDLT_INEQ_COND = 3,/* -> condensed device backend */
     PIQP_TPU_SPARSE_LDLT_COND = 4,     /* -> condensed device backend */
     PIQP_TPU_SPARSE_MULTISTAGE = 5,
-    PIQP_TPU_DENSE_LU = 6,             /* TPU extension: full-KKT dense LU */
-    PIQP_TPU_DENSE_LDLT = 7,           /* TPU extension: full-KKT signed
+    PIQP_TPU_DENSE_LU = 6,             /* extension: full-KKT dense LU */
+    PIQP_TPU_DENSE_LDLT = 7,           /* extension: full-KKT signed
                                         * Cholesky (LDL^T no-pivot), f64 on
                                         * device */
     PIQP_TPU_AUTO = -1                 /* let the router decide (sparse) */
 } piqp_tpu_kkt_solver;
 
-/* Full settings mirror (piqp_settings, piqp_typedef.h:77-115) plus the
- * TPU-specific extensions at the tail. */
+/* Full settings mirror (piqp_settings, piqp_typedef.h:77-115) plus
+ * the device extensions at the tail. */
 typedef struct {
     double rho_init;                       /* 1e-6 */
     double delta_init;                     /* 1e-4 */
@@ -119,10 +119,11 @@ typedef struct {
     double iterative_refinement_static_regularization_rel; /* eps^2; <0 -> default */
     int verbose;                           /* 0 */
     int compute_timings;                   /* 0 */
-    /* --- TPU extensions (types.py Settings) --- */
+    /* --- device extensions (types.py Settings) --- */
     int use_float32;                       /* 0: f64 solver dtype */
     int mixed_precision;                   /* 0: f32 factors + refinement */
-    int pallas_kernels;                    /* 0: Pallas batched factor path */
+    int pallas_kernels;                    /* 0: plain Cholesky factor; 1: factor
+                                              with its triangular inverse */
     double refine_mu_factor;               /* 1e-2: inexact-IPM refinement
                                               tolerance (0 = fixed 1e-12) */
     int refine_static_passes;              /* 1: fixed phase-A refinement

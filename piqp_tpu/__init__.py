@@ -1,4 +1,4 @@
-"""piqp_tpu — a TPU-native proximal interior-point QP solver framework.
+"""piqp_tpu — an accelerator-native proximal interior-point QP solver framework.
 
 A from-scratch JAX/XLA re-design with the capabilities of PIQP
 (PREDICT-EPFL/piqp): an infeasible primal-dual interior-point method combined
@@ -8,7 +8,7 @@ with the proximal method of multipliers, solving convex QPs
 
 Everything is pure-functional JAX under the hood: solves jit-compile once per
 problem shape, ``vmap`` gives batched solves of thousands of QPs, and
-``jax.sharding`` scales batches and multistage horizons across TPU meshes.
+``jax.sharding`` scales batches and multistage horizons across GPUs.
 """
 
 import jax as _jax

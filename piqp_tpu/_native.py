@@ -1,6 +1,6 @@
 """ctypes loader for the native host-side analysis library.
 
-The compute path is JAX/XLA on TPU; the *setup-time* sparse analysis
+The compute path is JAX/XLA on the device; the *setup-time* sparse analysis
 (structure detection, block scattering) is scalar pointer-chasing work that
 belongs on the host — the reference implements it in C++
 (multistage_kkt.hpp:420-818) and so do we (csrc/structure.cpp).

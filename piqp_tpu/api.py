@@ -39,9 +39,7 @@ from .types import (
 )
 
 
-def _route_backend(
-    data: QPData, settings: Settings, backend: str | None = None
-) -> QPData:
+def _route_backend(data: QPData, settings: Settings) -> QPData:
     """Re-wrap the data in the representation matching settings.kkt_solver
     (the representation type IS the backend selector; see kkt.py)."""
     import dataclasses
@@ -50,22 +48,6 @@ def _route_backend(
         f.name: getattr(data, f.name) for f in dataclasses.fields(QPData)
     }
     if settings.kkt_solver == KKTBackend.dense_lu and type(data) is QPData:
-        # The TPU runtime only implements LU for f32; in f64 the request
-        # would die inside XLA with an opaque compile error.  dense_ldlt
-        # factors the same full 3-block KKT (signed Cholesky, ops/ldlt.py)
-        # and does compile in f64 — route there with a warning.
-        backend = backend or jax.default_backend()
-        if backend == "tpu" and jnp.dtype(data.P.dtype) == jnp.float64:
-            import warnings
-
-            warnings.warn(
-                "KKTBackend.dense_lu does not compile in float64 on the TPU "
-                "runtime (LuDecomposition is f32-only); routing to "
-                "dense_ldlt, the f64-capable full-KKT backend "
-                "(docs/backends.md).",
-                stacklevel=3,
-            )
-            return LDLTKKTQPData(**fields())
         return FullKKTQPData(**fields())
     if settings.kkt_solver == KKTBackend.dense_ldlt and type(data) is QPData:
         return LDLTKKTQPData(**fields())
@@ -199,9 +181,9 @@ def has_cone(data: QPData) -> bool:
 @partial(jax.jit, static_argnames=("settings", "cone"))
 def _solve_fresh(data: QPData, settings: Settings, cone: bool, warm=None):
     """Equilibrate + solve; returns (result, scaling)."""
-    # float32 matmuls on TPU default to bfloat16 passes — catastrophic for a
-    # factorization-based solver; force full-precision accumulation (f64 is
-    # unaffected).
+    # an unscoped float32 matmul on the GPU runs in TF32 (about three
+    # decimal digits) — catastrophic for a factorization-based solver;
+    # force full-precision products (f64 is unaffected).
     with jax.default_matmul_precision("highest"):
         sdata, sc = ruiz.equilibrate(
             data,
@@ -511,7 +493,7 @@ class DenseSolver:
         from . import __version__
 
         print("----------------------------------------------------------")
-        print(f"              piqp_tpu v{__version__} (TPU-native)        ")
+        print(f"                   piqp_tpu v{__version__}                 ")
         print("----------------------------------------------------------")
         d = self._data
         print(f"variables n = {d.n}, equality constraints p = {d.p}, "

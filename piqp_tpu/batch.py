@@ -1,11 +1,11 @@
-"""Batched QP solving — the TPU headline capability.
+"""Batched QP solving — the headline capability on an accelerator.
 
 The reference is a single-problem, single-core library; its throughput story
-is SIMD + OpenMP (SURVEY.md section 2.10).  On TPU the natural analog is
+is SIMD + OpenMP (SURVEY.md section 2.10).  On a GPU the natural analog is
 *batching*: every solver stage is a pure function over pytrees, so ``vmap``
 turns it into a batched solver where the condensed-KKT Cholesky becomes a
-batched factorization on the MXU, and ``jax.sharding`` splits the batch
-across devices (data-parallel over ICI).
+batched factorization, and ``jax.sharding`` splits the batch across
+devices (data-parallel).
 
 All problems in a batch share shapes (n, p, m); masks may differ per
 problem (different active bounds), but all problems must either have cone
@@ -69,10 +69,7 @@ def _solve_batch_chunked(
 
     One executable compiles (per chunk shape); the loop issues async
     dispatches back-to-back, so device utilization matches the monolithic
-    vmap.  Exists because very large single-dispatch batches trip
-    per-kernel faults in some TPU runtimes, and nesting the vmap inside
-    ``lax.map`` reproduces the same fault (nested control-flow issue);
-    plain re-dispatch is the robust path.
+    vmap while each dispatch's working set (device memory) stays bounded.
     """
     B = data.c.shape[0]
     outs = []
@@ -134,7 +131,7 @@ def _solve_batch_sqp_jit(
 
     This is the SQP/MPC usage pattern (the reference's warm loop:
     benchmarks/src/sqp_benchmarks.cpp:16-120 and solver.hpp:218-308's
-    allocation-free update+solve) expressed TPU-natively: the scan body is
+    allocation-free update+solve) expressed as one program: the scan body is
     traced once, so the executable is the size of ONE warm solve while K
     rounds of work ride a single dispatch — on a dispatch-latency-bound
     runtime this amortizes both the dispatch floor and the executable load

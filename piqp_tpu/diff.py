@@ -5,7 +5,7 @@ A capability the C++ reference cannot offer: ``solve_qp_diff`` is a
 ``jax.custom_vjp`` around the IPM solve, so QP solutions compose with
 ``jax.grad`` / ``jax.vmap`` / ``jax.jit`` — learned MPC cost tuning,
 hyperparameter fitting through a control loop, OptNet-style QP layers in
-neural networks, end-to-end on TPU.  It is representation-generic: the
+neural networks, end-to-end on the device.  It is representation-generic: the
 same entry point differentiates dense ``QPData`` problems AND structured
 ``multistage.StageQPData`` problems (gradients land on the stage blocks
 Pd/Psub/Pa/..., and the adjoint solve reuses the block-tridiagonal+arrow
@@ -33,7 +33,7 @@ rows reduces the transpose solve to the familiar condensed saddle system
 
 — the same quasi-definite structure the IPM factors each iteration
 (kkt_system.hpp:161-193 with ρ = δ = 0).  The dense representations
-factor the saddle directly with the TPU-f64 signed-Cholesky kernel
+factor the saddle directly with the f64 signed-Cholesky kernel
 (ops/ldlt.py); StageQPData goes through ``kkt.factor``'s multistage
 dispatch (the adjoint weights ARE a KKTState, built by
 ``kkt.compute_scalings`` from the solution's slacks/duals with tiny

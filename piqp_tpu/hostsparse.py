@@ -1,10 +1,10 @@
 """Host sparse backend: the same proximal IPM over scipy.sparse, CPU-side.
 
 Large general sparse QPs with no exploitable block structure are the one
-problem class a TPU cannot factorize natively (scalar etree-chasing LDL^T,
+problem class an accelerator cannot factorize well (scalar etree-chasing LDL^T,
 /root/reference/include/piqp/sparse/ldlt.hpp:101-169, is the canonical
-anti-pattern for the MXU/VPU).  The routing rule documented in SURVEY.md §7:
-condense small problems to the dense MXU path, route structured problems to
+anti-pattern for wide SIMD hardware).  The routing rule documented in SURVEY.md §7:
+condense small problems to the dense device path, route structured problems to
 the multistage backend, and run the remainder on the host.  This module is
 that host path — a NumPy twin of the JAX IPM (solver.py), iteration-for-
 iteration identical in its update rules, over the reference's *full*

@@ -1,14 +1,14 @@
 """Condensed KKT system: scalings, assembly, Cholesky factor/solve,
 slack/dual recovery, iterative refinement.
 
-TPU-native re-design of the reference KKT layer:
+Accelerator-first re-design of the reference KKT layer:
   - condensation of the 10-block KKT system to the 3-block (x, y, z) system:
     /root/reference/include/piqp/kkt_system.hpp:143-369
   - the fully condensed n-by-n dense backend (K = P + diag(x_reg)
     + (1/delta) A'A + G' W^-1 G + Cholesky):
     /root/reference/include/piqp/dense/kkt.hpp:39-177
 
-Design deltas vs the reference (TPU-first):
+Design deltas vs the reference (accelerator-first):
 
 - All per-bound index-set loops (kkt_system.hpp:161-193, 219-252, 310-366)
   become masked vector expressions.  In particular the three-way per-row
@@ -16,9 +16,9 @@ Design deltas vs the reference (TPU-first):
   vector formula: with ``W_l_inv = 0`` on rows without a lower bound the
   two-sided expressions degenerate *exactly* to the one-sided ones.
 
-- The backend is matmul/Cholesky shaped for the MXU: K is assembled with two
-  GEMMs + a diagonal add, factored with XLA's blocked Cholesky, and solved
-  with batched triangular solves.  Everything vmaps for batched QPs.
+- The backend is matmul/Cholesky shaped: K is assembled with two GEMMs +
+  a diagonal add, factored with XLA's Cholesky (cuSOLVER on the GPU), and
+  solved with batched triangular solves.  Everything vmaps for batched QPs.
 """
 
 from __future__ import annotations
@@ -149,8 +149,8 @@ def compute_scalings(
 def empty_factor(data, settings: Settings = None):
     """Placeholder for the backend factor pytree (filled by ``factor``).
     The placeholder's pytree STRUCTURE selects the factor representation:
-    a (L, Linv) tuple routes the dense backend to the Pallas
-    cholesky-with-inverse kernel (settings.pallas_kernels)."""
+    a (L, Linv) tuple selects the factor-with-inverse representation
+    (settings.pallas_kernels, ops/pallas_chol.py)."""
     raise NotImplementedError(type(data))
 
 
@@ -169,13 +169,9 @@ def precompute(data, mixed: bool = False):
     cache.
 
     ``mixed=True`` additionally materializes float32 copies of the problem
-    matrices (``data32``, ``AtA32``) ONCE, outside the IPM while_loop.
-    The f64 phase-A matvecs were the measured iteration cost on TPU
-    (residuals_nr 14.7 us/problem f64 vs 1.9 us against f32 matrices —
-    7.9x, benchmarks/iter_profile.py round 5: f64 is emulated, so the win
-    exceeds the 2x byte reduction); hoisting the casts here also stops
-    every factorization from re-reading the f64 matrices just to cast
-    them."""
+    matrices (``data32``, ``AtA32``) ONCE, outside the IPM while_loop, so
+    the phase-A matvecs read half the bytes and no factorization re-reads
+    the f64 matrices just to cast them."""
     return None
 
 
@@ -222,7 +218,7 @@ def factor(
 ) -> tuple[KKTState, jax.Array]:
     """Factor the condensed system; backend chosen by data representation.
 
-    ``mixed=True`` assembles and factors in float32 (native MXU speed);
+    ``mixed=True`` assembles and factors in float32;
     iterative refinement in the solver dtype recovers accuracy.  ``pre``
     carries the loop-invariant terms from ``precompute``.
     """
@@ -236,8 +232,8 @@ def _factor_dense(data: QPData, ks: KKTState, mixed: bool = False, pre=None):
     reports failure, dense/kkt.hpp:82-83).
 
     When ks.L is an (L, Linv) tuple placeholder (settings.pallas_kernels),
-    the factorization runs through the Pallas cholesky-with-inverse kernel
-    (ops/pallas_chol.py) and solves become GEMMs against Linv."""
+    the factorization also builds L^-1 (ops/pallas_chol.py) and solves
+    become GEMVs against Linv."""
     if isinstance(ks.L, tuple):
         from .ops.pallas_chol import cholesky_with_inverse
 
@@ -425,8 +421,8 @@ def _(data: LDLTKKTQPData, settings: Settings = None):
     Np = ldlt.padded_dim(data.n + data.p + data.m)
     dt = data.P.dtype
     if use_pallas(settings):
-        # full-inverse representation: the signed Pallas kernel
-        # (ops/pallas_chol.signed_cholesky_with_inverse) under vmap
+        # full-inverse representation
+        # (ops/pallas_chol.signed_cholesky_with_inverse)
         return (jnp.zeros((Np, Np), dt), jnp.zeros((Np, Np), dt))
     nb = Np // ldlt.DEFAULT_BLOCK
     bs = ldlt.DEFAULT_BLOCK
@@ -445,9 +441,9 @@ def _factor_full_ldlt(
     """Blocked signed Cholesky (LDL^T, no pivoting) of the full 3-block
     quasi-definite KKT matrix (ops/ldlt.py) — the device analog of the
     reference's dense::LDLTNoPivot (dense/ldlt_no_pivot.hpp:279-354) applied
-    to the KKT_FULL system.  Unlike the LU backend this compiles for TPU in
-    float64, so it is the on-device robustness route for ill-conditioned
-    problems where the condensed form's squared condition number bites."""
+    to the KKT_FULL system: a Cholesky-cost robustness route for
+    ill-conditioned problems where the condensed form's squared condition
+    number bites."""
     from .ops import ldlt
 
     dt = jnp.float32 if mixed else data.P.dtype
@@ -456,8 +452,8 @@ def _factor_full_ldlt(
     Kp = ldlt.pad_quasidef(K, Np)
     signs = ldlt.kkt_signs(data.n, data.p, data.m, Np, dt)
     if ks.L[1].ndim == 2:
-        # full-inverse representation (settings.pallas_kernels): under vmap
-        # this hits the signed Pallas kernel; solves become GEMMs
+        # full-inverse representation (settings.pallas_kernels): solves
+        # become GEMVs
         from .ops.pallas_chol import signed_cholesky_with_inverse
 
         L, Linvs = signed_cholesky_with_inverse(Kp, signs)
@@ -587,12 +583,8 @@ def _solve_condensed_refined(
     relaxed to ``max(tol, refine_mu_factor * mu)`` — the inexact-IPM rule
     (solve the Newton system to an accuracy proportional to the barrier
     parameter).  Early IPM iterations then accept the direct f32-factor
-    solve — measured (benchmarks/iter_profile.py, B=256 n=64 TPU): the
-    refined KKT solve costs 62.7 us/problem at tol ~ 1e-3*mu-scale versus
-    164.1 us at 1e-9 against the same f32 factor (2.6x), and the fixed
-    1e-12 worst case is 168.7 us vs 18.0 us unrefined — while late
-    iterations
-    tighten automatically as mu -> 0; final accuracy is still governed by
+    solve, while late iterations tighten automatically as mu -> 0; final
+    accuracy is still governed by
     the unregularized residual checks in the solver's termination test.
     """
     lx, ly, lz = _backend_solve(data, ks, rx, ry, rz, mat32)
@@ -605,14 +597,11 @@ def _solve_condensed_refined(
     ):
         # Statically unrolled phase-A refinement (types.Settings.
         # refine_static_passes): a FIXED number of correction passes with
-        # no error norms, no improvement-rate logic and no while_loop.
-        # Measured (benchmarks/iter_profile.py round 5): the adaptive
-        # refined solve costs 62.7 us/problem at the mu-relaxed tolerance
-        # while its arithmetic content (solve 3.2 + pass ~5 us) is ~10 —
-        # the lockstep while_loop's per-trip machinery (three masked
-        # norm reductions, rate/slow/done selects, batched cond sync) IS
-        # the cost.  Inexact-IPM theory only needs solve accuracy
-        # proportional to mu here, the f64 endgame re-solves adaptively,
+        # no error norms, no improvement-rate logic and no while_loop: the
+        # lockstep while_loop's per-trip machinery (three masked norm
+        # reductions, rate/slow/done selects, batched cond sync) can cost
+        # more than the arithmetic.  Inexact-IPM theory only needs solve
+        # accuracy proportional to mu here, the f64 endgame re-solves adaptively,
         # and termination always checks true residuals, so fixed passes
         # in phase A trade nothing but unmeasurable accuracy.  The
         # factor-ladder's failure signal is preserved via one finiteness

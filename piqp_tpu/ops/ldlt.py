@@ -1,7 +1,7 @@
 """Blocked signed Cholesky (LDL^T without pivoting) for quasi-definite
 KKT matrices.
 
-TPU-native re-design of the reference's dense no-pivot LDL^T kernel
+Re-design of the reference's dense no-pivot LDL^T kernel
 (/root/reference/include/piqp/dense/ldlt_no_pivot.hpp:279-354: unblocked
 kernel + blocked driver with block sizes 8..128).  The reference keeps that
 kernel for quasi-definite systems and benchmarking; here it additionally
@@ -17,16 +17,14 @@ pivoting and the signs of D are known STATICALLY: +1 for the n primal
 rows, -1 for the p+m dual rows (Vanderbei, "Symmetric quasi-definite
 matrices", 1995).  That turns LDL^T into a *signed Cholesky*
 ``K = L S L^T`` with S = diag(signs) fixed at trace time — a Cholesky-cost
-factorization built entirely from rank-updates and GEMMs, which XLA
-compiles for TPU in float64 (unlike ``lax.linalg.lu``, which the TPU
-runtime only implements for f32).
+factorization built entirely from rank-updates and GEMMs.
 
-Design (TPU-first, not a port):
+Design (accelerator-first, not a port):
 
 - Blocked right-looking sweep as a ``lax.fori_loop`` over fixed-size
   column blocks (static shapes; one compiled body regardless of N).
-- The small diagonal-block factorization *fuses the triangular inverse*
-  (same trick as ops/pallas_chol.py): step j produces row j of Lkk^-1 by
+- The small diagonal-block factorization *fuses the triangular inverse*:
+  step j produces row j of Lkk^-1 by
   substitution against rows < j.  The panel update and both solve sweeps
   then become pure GEMMs against the stored per-block inverses — no
   sequential scalar substitution anywhere outside the bs-step inner loop.
@@ -48,7 +46,7 @@ import jax.numpy as jnp
 from jax import lax
 
 # Default column-block width. 64 keeps the bs-step sequential inner loop
-# short while the panel/trailing GEMMs are MXU-tileable.
+# short while the panel/trailing GEMMs stay large.
 DEFAULT_BLOCK = 64
 
 
@@ -57,9 +55,8 @@ def _small_signed_ldl(Skk: jax.Array, s: jax.Array):
     s in {+1, -1}; returns (L, Linv) with L lower triangular (scaled
     Cholesky convention: diag(L) = sqrt(|d|), not unit) and Linv = L^-1.
 
-    Same fused-inverse structure as the Pallas batched kernel
-    (ops/pallas_chol.py:_chol_inv_kernel), with the sign woven into the
-    pivot and the rank-1 update.
+    Step j produces row j of Linv by forward substitution against rows
+    < j, with the sign woven into the pivot and the rank-1 update.
     """
     bs = Skk.shape[-1]
     dt = Skk.dtype

@@ -60,9 +60,8 @@ def PAG_x(data, x):
     The default composes the dispatched matvecs (structured backends keep
     their linear-in-horizon evaluations).  Dense representations override
     with ONE stacked GEMV: the [P; A; G] constant is loop-invariant, so XLA
-    hoists the concatenation out of the IPM while_loop, and on
-    dispatch-overhead-bound runtimes op count — not flops — prices the
-    residual/refinement passes (measured: benchmarks/iter_profile.py).
+    hoists the concatenation out of the IPM while_loop, and one GEMV
+    launches one kernel where three would launch three.
     """
     Px = P_x(data, x)
     Ax = A_x(data, x) if data.p else jnp.zeros((0,), x.dtype)

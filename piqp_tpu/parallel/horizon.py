@@ -4,8 +4,8 @@ Cholesky across a device mesh.
 The reference's multistage factorization is an inherently *sequential*
 recursion over stages (factor_kkt, /root/reference/include/piqp/sparse/
 multistage_kkt.hpp:1253-1352; its OpenMP parallelism covers only the
-per-stage assembly, not the recursion itself).  On a TPU mesh that serial
-chain would leave every chip but one idle, so the factorization is
+per-stage assembly, not the recursion itself).  On a device mesh that serial
+chain would leave every device but one idle, so the factorization is
 re-designed (not ported) as a **partitioned Schur-complement method**
 (the block-tridiagonal analog of SPIKE / domain decomposition):
 
@@ -20,7 +20,7 @@ re-designed (not ported) as a **partitioned Schur-complement method**
     contribution S_k = sum_i F_i F_i' onto those coupling variables.
  3. The Schur complement onto the separators + arrow is itself a
     block-tridiagonal + arrow system of ndev stages — tiny.  It is
-    all-gathered over ICI and factored redundantly on every device
+    all-gathered and factored redundantly on every device
     (cheaper than broadcasting factors).
  4. Solves run the same two levels: parallel interior forward sweeps,
     redundant coarse solve, parallel interior backward sweeps.
@@ -204,8 +204,9 @@ def _(data: ShardedStageQPData, settings=None):
     z = jnp.zeros
     if _use_cr(Qi):
         # chunk interiors factor by cyclic reduction (log-depth per chip);
-        # placeholder structure selects the scheme, level arity the Pallas
-        # kernel (same convention as multistage.empty_factor)
+        # placeholder structure selects the scheme, level arity the
+        # factor-with-inverse form (same convention as
+        # multistage.empty_factor)
         pallas = use_pallas(settings)
         local = jax.tree.map(
             lambda a: jnp.zeros((ndev * a.shape[0],) + a.shape[1:], dt),
@@ -438,13 +439,6 @@ def solve_horizon_sharded(
                 "(the padded stage layout returned by solve_horizon_sharded)"
             )
 
-    with jax.sharding.use_mesh(mesh) if hasattr(jax.sharding, "use_mesh") else _null():
-        return _solve_sharded_jit(sdata, settings, has_cone, warm)
-
-
-class _null:
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *a):
-        return False
+    # the factor and solve name their mesh in shard_map(mesh=...), so no
+    # ambient mesh context is needed
+    return _solve_sharded_jit(sdata, settings, has_cone, warm)

@@ -1,6 +1,6 @@
 """The proximal interior-point method (IPM) core.
 
-TPU-native re-design of SolverBase::solve_impl and friends
+Accelerator-first re-design of SolverBase::solve_impl and friends
 (/root/reference/include/piqp/solver.hpp:379-1259):
 
 - the main iteration is a single ``lax.while_loop`` over a solver-state
@@ -74,8 +74,7 @@ def residuals_nr(
     All P/A/G matvecs ride the fused ``ops.PAG_x``/``ops.add_AtGt`` passes
     and the per-bound masked maxima are stacked into one reduction per
     vector length — max is order-free, so the values are bitwise identical
-    to the per-term formulation; only the op count changes (hot on
-    dispatch-overhead-bound runtimes, benchmarks/iter_profile.py).
+    to the per-term formulation; only the op count changes.
 
     ``mat32``: optional f32-matrix copy (kkt.precompute's data32) — the
     matvecs then run in f32 (mixed phase A: residual accuracy ~1e-6
@@ -515,7 +514,7 @@ def calculate_mu(data: QPData, v: Vars) -> jax.Array:
 def calculate_step(v: Vars, step: Vars, data: QPData):
     """Fraction-to-the-boundary min-ratio test (solver.hpp:893-958), as four
     stacked masked reductions (the reference parallelizes this loop with
-    OpenMP; on TPU each is a single fused VPU pass — min is order-free, so
+    OpenMP; here each is a single fused pass — min is order-free, so
     stacking the slack/dual pairs is bitwise identical)."""
 
     def ratio(val, stp, mask):
@@ -610,7 +609,7 @@ def _warm_vars(data: QPData, sc: Scaling, warm: BasicVars) -> Vars:
     whole point strictly into the interior.
 
     The reference has no warm-start API (its ``solve()`` always cold-starts,
-    solver.hpp:398-577); this is a TPU-native addition serving the batched
+    solver.hpp:398-577); this is an addition serving the batched
     MPC/SQP regime, where re-solves after small parameter updates dominate.
     """
     x = warm.x / sc.d_x
@@ -687,11 +686,8 @@ def _init_state(
     if warm is not None:
         # warm start performs no init KKT solve, and the first iteration
         # refactors before its first solve — so the init factorization is
-        # dead work.  Measured saving (benchmarks/iter_profile.py, B=256
-        # n=64 TPU): scalings 2.3 us + factor 3.2 us (f32 Pallas) or
-        # 32.4 us (f64 rank-1) per problem — up to ~4% of a short warm
-        # solve at the round-5 warm rate, more when the f64 factor is
-        # taken.  Build the KKT state with a placeholder factor instead.
+        # dead work.  Build the KKT state with a placeholder factor
+        # instead.
         ks = kkt.compute_scalings(
             data, settings, vars0, info.rho, info.delta, use_ir, P_diag
         )  # leaves L as the empty_factor placeholder
@@ -867,8 +863,7 @@ def _check_termination(data, sc, settings, st: IPMState) -> IPMState:
 def _iteration(
     data, sc, settings, has_cone, st: IPMState, mixed: bool = False, pre=None
 ) -> IPMState:
-    # f32 matrix copies for the phase-A matvecs (hoisted by precompute;
-    # measured 7.9x on the residual pass, benchmarks/iter_profile.py r5)
+    # f32 matrix copies for the phase-A matvecs (hoisted by precompute)
     mat32 = pre.get("data32") if (mixed and isinstance(pre, dict)) else None
     info = st.info.replace(iter=st.info.iter + 1)
     vars = st.vars
@@ -1318,8 +1313,8 @@ def solve_scaled(
 
     def run_ipm(st):
         if settings.mixed_precision:
-            # two-phase mixed precision: float32 factors (native MXU
-            # speed) while the barrier is loose, float64 factors for the
+            # two-phase mixed precision: float32 factors while the
+            # barrier is loose, float64 factors for the
             # endgame.  A single-phase f32-everywhere mode inflates the
             # iteration tail badly once cond(K) exceeds f32 range (a
             # 5x-slower tail problem stalls the whole lockstep vmapped

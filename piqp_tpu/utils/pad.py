@@ -1,6 +1,6 @@
 """Shape padding: embed a QP into larger (bucketed) dimensions.
 
-TPU-native utility with no reference analog: XLA compiles one executable per
+Utility with no reference analog: XLA compiles one executable per
 shape, so heterogeneous problem collections (e.g. the Maros-Meszaros corpus,
 or mixed MPC scenario batches) are padded up to shared shape buckets.
 

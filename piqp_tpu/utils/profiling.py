@@ -3,7 +3,7 @@
 The reference integrates the Tracy frame profiler via ~80 zone macros
 compiled in under BUILD_WITH_TRACY (/root/reference/include/piqp/utils/
 tracy.hpp:11-26) plus built-in phase timers filling Info
-(timer.hpp:17-35, results.hpp:83-88).  The TPU-native analogs:
+(timer.hpp:17-35, results.hpp:83-88).  The JAX analogs:
 
 - :func:`trace`: capture an XLA device trace viewable in TensorBoard /
   Perfetto — the device-side replacement for frame profiling (per-kernel

@@ -5,20 +5,33 @@ feasibility, stationarity, dual feasibility and the duality gap of a
 returned solution directly against the *original unscaled* problem data.
 This is the same optimality system PIQP's residuals measure
 (/root/reference/include/piqp/solver.hpp:960-1105).
+
+P, A and G may be dense arrays or scipy.sparse matrices.
 """
 
 import numpy as np
+import scipy.sparse as sp
 
 INF = 1e30
 
 
+def _mat(M, n):
+    if M is None:
+        return np.zeros((0, n))
+    return M.tocsr() if sp.issparse(M) else np.asarray(M)
+
+
 def check_optimality(prob: dict, res, tol: float = 1e-6) -> None:
-    P = np.asarray(prob["P"])
-    P = np.triu(P) + np.triu(P, 1).T
+    P = prob["P"]
+    if sp.issparse(P):
+        P = sp.triu(P, format="csr") + sp.triu(P, 1, format="csr").T
+    else:
+        P = np.asarray(P)
+        P = np.triu(P) + np.triu(P, 1).T
     c = np.asarray(prob["c"])
-    A = np.asarray(prob.get("A")) if prob.get("A") is not None else np.zeros((0, P.shape[0]))
+    A = _mat(prob.get("A"), P.shape[0])
     b = np.asarray(prob.get("b")) if prob.get("b") is not None else np.zeros(0)
-    G = np.asarray(prob.get("G")) if prob.get("G") is not None else np.zeros((0, P.shape[0]))
+    G = _mat(prob.get("G"), P.shape[0])
     m, n = G.shape
     h_l = np.asarray(prob.get("h_l")) if prob.get("h_l") is not None else np.full(m, -np.inf)
     h_u = np.asarray(prob.get("h_u")) if prob.get("h_u") is not None else np.full(m, np.inf)
@@ -38,8 +51,11 @@ def check_optimality(prob: dict, res, tol: float = 1e-6) -> None:
     xu_mask = x_u < INF
     # rows with no finite bounds are disabled by the solver
     dead = ~hl_mask & ~hu_mask
-    G = G.copy()
-    G[dead] = 0.0
+    if sp.issparse(G):
+        G = sp.diags((~dead).astype(float)) @ G
+    else:
+        G = G.copy()
+        G[dead] = 0.0
 
     scale = max(1.0, np.abs(x).max(initial=0.0))
 

@@ -18,7 +18,7 @@ from piqp_tpu.utils.random import dense_strongly_convex_qp
 
 
 def test_update_resolve_does_not_retrace():
-    """update() + solve() must reuse the compiled executable — the TPU
+    """update() + solve() must reuse the compiled executable — the JAX
     analog of PIQP's allocation-free update path (solver.hpp:218-308,
     asserted via the Eigen malloc guard in the reference tests)."""
     prob = dense_strongly_convex_qp(16, 4, 8, seed=0)

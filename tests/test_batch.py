@@ -1,4 +1,4 @@
-"""Batched (vmapped) and sharded solve tests — the TPU-native headline path
+"""Batched (vmapped) and sharded solve tests — the headline device path
 (SURVEY.md section 7 S5/S8 analogs)."""
 
 import jax

@@ -193,12 +193,9 @@ def test_maros_meszaros_dense_device_medium(name):
     )
 
 
-# 512 < n <= 1000 instances through the device dense condensed backend —
-# the sizes the measured routing crossover admits (benchmarks/
-# routing_crossover.py, 2026-08-20 TPU run: device wins at n=649 and is
-# within ~8% of host at n=1000; benchmarks/routing_crossover.json).
-# The default SparseSolver routing cap stays at 512 (conservative for the
-# per-dispatch-cost regime), but the backend itself must cover these.
+# 512 < n <= 1000 instances through the device dense condensed backend.
+# The default SparseSolver routing cap stays at 512, but the backend
+# itself must cover these sizes.
 LARGE_DEVICE_MAROS = [
     "PRIMAL2", "GOULDQP2", "GOULDQP3", "PRIMAL3", "MOSARQP2", "CVXQP2_M",
 ]

@@ -112,8 +112,8 @@ def test_dense_ldlt_backend_matches_cholesky(dims):
 @pytest.mark.corpus
 def test_dense_ldlt_solves_robot_arm():
     """The done-criterion the dense_lu backend owns (test_fixtures.py:
-    robot_arm needs the full-KKT form), now met by a backend the TPU
-    runtime can actually compile in f64 (lax.linalg.lu cannot)."""
+    robot_arm needs the full-KKT form), also met by the signed-Cholesky
+    full-KKT backend."""
     import os
 
     from piqp_tpu.utils.io import load_mat
@@ -125,25 +125,27 @@ def test_dense_ldlt_solves_robot_arm():
     assert int(res.info.status) == int(Status.SOLVED)
 
 
-def test_dense_lu_routes_to_ldlt_on_accelerator():
-    """In f64 on a non-CPU backend, dense_lu requests reroute to the
-    f64-capable dense_ldlt backend with a warning (the TPU runtime's
-    LuDecomposition is f32-only)."""
-    from piqp_tpu.api import _route_backend, prepare_data
-    from piqp_tpu.types import FullKKTQPData, LDLTKKTQPData
+@pytest.mark.parametrize("platform", ["gpu", "cpu"])
+def test_dense_lu_routes_to_full_kkt(platform, monkeypatch):
+    """dense_lu keeps its pivoted-LU full-KKT representation in f64 on
+    every backend (cuSOLVER factors it on the GPU), with no warning."""
+    import warnings
 
-    prob = dense_strongly_convex_qp(8, 3, 4, seed=5)
-    data = prepare_data(**prob)
-    s = Settings(kkt_solver=KKTBackend.dense_lu)
-    with pytest.warns(UserWarning, match="dense_ldlt"):
-        routed = _route_backend(data, s, backend="tpu")
-    assert type(routed) is LDLTKKTQPData
-    assert type(_route_backend(data, s, backend="cpu")) is FullKKTQPData
+    from piqp_tpu.api import _route_backend, prepare_data
+    from piqp_tpu.types import FullKKTQPData
+
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    data = prepare_data(**dense_strongly_convex_qp(8, 3, 4, seed=5))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        routed = _route_backend(data, Settings(kkt_solver=KKTBackend.dense_lu))
+    assert type(routed) is FullKKTQPData
+    assert routed.P.dtype == jnp.float64
 
 
 def test_signed_pallas_kernel_matches_blocked():
-    """The vmapped signed Pallas kernel (interpreter mode on CPU) agrees
-    with the blocked kernel and with dense solves."""
+    """The vmapped signed factor-with-inverse agrees with the blocked
+    kernel and with dense solves."""
     from piqp_tpu.ops.pallas_chol import (
         signed_cholesky_with_inverse,
         signed_inv_solve,

@@ -1,10 +1,6 @@
-"""Pallas batched cholesky-with-inverse kernel (ops/pallas_chol.py) —
-equivalence vs XLA's cholesky, and end-to-end IPM runs with
-Settings(pallas_kernels=True).
-
-On the CPU test backend the kernel runs in interpreter mode (the identical
-kernel body compiles under Mosaic on TPU; tests/test_pallas.py re-runs on
-the real chip via PIQP_TPU_TEST_TPU=1).
+"""Factor-with-inverse representation (ops/pallas_chol.py) — equivalence
+with numpy's f64 Cholesky and inverse, the NaN failure signal, and
+end-to-end IPM runs with Settings(pallas_kernels=True).
 
 Mirrors the reference's kernel-test layer for the blocked dense
 factorization (tests/src/dense/ldlt_test.cpp; kernel being replaced:
@@ -20,8 +16,7 @@ import jax.numpy as jnp
 from piqp_tpu import DenseSolver, Settings, Status
 from piqp_tpu.batch import prepare_batch, solve_batch
 from piqp_tpu.ops.pallas_chol import (
-    _chol_inv_xla,
-    _pallas_chol_inv_batched,
+    cholesky_inverse_apply,
     cholesky_with_inverse,
     inv_solve,
 )
@@ -37,26 +32,50 @@ def _spd_batch(B, n, dtype, seed=0):
     return jnp.asarray(K, dtype)
 
 
+def _check_factor(K, L, Linv, tol):
+    Kn = np.asarray(K, np.float64)
+    L_ref = np.linalg.cholesky(Kn)
+    np.testing.assert_allclose(np.asarray(L), L_ref, atol=tol, rtol=tol)
+    np.testing.assert_allclose(
+        np.asarray(Linv), np.linalg.inv(L_ref), atol=tol, rtol=tol
+    )
+
+
 @pytest.mark.parametrize("n", [8, 32, 100, 128, 256])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
 def test_kernel_matches_xla_cholesky(n, dtype):
-    B = 5  # deliberately not a multiple of the tile size (pads internally)
+    """The batched factor-with-inverse against numpy's f64 Cholesky and
+    inverse."""
+    B = 5
     K = _spd_batch(B, n, dtype, seed=n)
-    L, Linv = _pallas_chol_inv_batched(K)
-    L_ref = jnp.linalg.cholesky(K)
-    tol = 5e-5 if dtype == jnp.float32 else 1e-11
-    np.testing.assert_allclose(np.asarray(L), np.asarray(L_ref), atol=tol, rtol=tol)
-    # Linv is the exact triangular inverse
-    eye = np.broadcast_to(np.eye(n), (B, n, n))
-    np.testing.assert_allclose(
-        np.asarray(L @ Linv), eye, atol=50 * tol, rtol=0
-    )
+    L, Linv = jax.vmap(cholesky_with_inverse)(K)
+    _check_factor(K, L, Linv, 5e-5 if dtype == jnp.float32 else 1e-11)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_nonpositive_pivot_is_nan(batched):
+    """A failed factorization surfaces as NaN, also under vmap inside a
+    while_loop: the retry ladder's failure signal (kkt._factor_dense)."""
+    K = _spd_batch(2, 16, jnp.float64, seed=2)
+    K = K.at[1, 3, 3].set(-1.0)
+
+    def factor_in_loop(k):
+        def body(c):
+            i, _ = c
+            return i + 1, cholesky_with_inverse(k)[0]
+        return jax.lax.while_loop(lambda c: c[0] < 2, body,
+                                  (0, jnp.zeros_like(k)))[1]
+
+    L = (jax.jit(jax.vmap(factor_in_loop))(K) if batched
+         else jnp.stack([jax.jit(factor_in_loop)(k) for k in K]))
+    assert np.all(np.isfinite(np.asarray(L[0])))
+    assert not np.all(np.isfinite(np.asarray(L[1])))
 
 
 def test_inv_solve_roundtrip():
     B, n = 4, 64
     K = _spd_batch(B, n, jnp.float64, seed=3)
-    L, Linv = _pallas_chol_inv_batched(K)
+    L, Linv = jax.vmap(cholesky_with_inverse)(K)
     rng = np.random.default_rng(0)
     v = jnp.asarray(rng.standard_normal((B, n)))
     x = inv_solve(Linv, v)
@@ -66,12 +85,11 @@ def test_inv_solve_roundtrip():
 
 
 def test_custom_vmap_dispatch():
-    """Unbatched call -> XLA fallback; vmapped call -> the Pallas kernel.
-    Both must agree."""
+    """Unbatched and vmapped calls agree."""
     n = 48
     K = _spd_batch(6, n, jnp.float64, seed=1)
     L1, I1 = jax.vmap(cholesky_with_inverse)(K)
-    L0, I0 = _chol_inv_xla(K[0])
+    L0, I0 = cholesky_with_inverse(K[0])
     np.testing.assert_allclose(np.asarray(L1[0]), np.asarray(L0), atol=1e-10)
     np.testing.assert_allclose(np.asarray(I1[0]), np.asarray(I0), atol=1e-9)
 
@@ -82,7 +100,7 @@ def test_dense_solver_pallas_end_to_end():
     s.setup(**prob)
     assert s.solve() == Status.SOLVED
     check_optimality(prob, s.result, tol=1e-6)
-    # same solution as the XLA route
+    # same solution as the plain factor
     s2 = DenseSolver(Settings())
     s2.setup(**prob)
     assert s2.solve() == Status.SOLVED
@@ -110,8 +128,8 @@ def test_batched_solve_pallas(mixed):
 
 @pytest.mark.parametrize("T", [17, 32])
 def test_multistage_cr_pallas(T):
-    """CR scheme with the Pallas block-potrf path (5-tuple levels) matches
-    the XLA route and solves to optimality."""
+    """CR scheme with the factor-with-inverse levels (5-tuples) matches the
+    plain route and solves to optimality."""
     from piqp_tpu import multistage as ms
     from piqp_tpu.api import solve_prepared
 
@@ -140,35 +158,15 @@ def test_multistage_cr_pallas_mixed():
     )
 
 
-@pytest.mark.parametrize("n", [24, 64, 130])
-def test_chol_inv_rank1_matches_xla(n):
-    """The f64-on-accelerator fallback (rank-1/GEMM build, including the
-    identity-padding slice for n not a multiple of the block) must agree
-    with XLA cholesky + triangular inverse."""
-    from piqp_tpu.ops.pallas_chol import _chol_inv_rank1, _chol_inv_xla
-
-    rng = np.random.default_rng(5)
-    A = rng.standard_normal((n, n))
-    K = jnp.asarray(A @ A.T + n * np.eye(n), dtype=jnp.float64)
-    L1, Linv1 = _chol_inv_rank1(K)
-    L2, Linv2 = _chol_inv_xla(K)
-    np.testing.assert_allclose(np.asarray(L1), np.asarray(L2),
-                               atol=1e-10, rtol=1e-10)
-    np.testing.assert_allclose(np.asarray(Linv1), np.asarray(Linv2),
-                               atol=1e-10, rtol=1e-8)
-
-
 @pytest.mark.parametrize("n,r", [(8, 18), (32, 80), (64, 144)])
 def test_chol_inv_apply_fused(n, r):
-    """The fused factor+inverse+apply kernel (the CR chain-step kernel)
-    matches a plain solve: Y == K^-1 RHS, L == chol(K)."""
-    from piqp_tpu.ops.pallas_chol import _pallas_chol_inv_apply_batched
-
-    B = 5  # not a tile multiple (pads internally)
+    """The batched factor+inverse+apply (the CR chain step) matches a
+    plain solve: Y == K^-1 RHS, L == chol(K)."""
+    B = 5
     K = _spd_batch(B, n, jnp.float64, seed=n + r)
     rng = np.random.default_rng(r)
     RHS = jnp.asarray(rng.standard_normal((B, n, r)))
-    L, Linv, Y = _pallas_chol_inv_apply_batched(K, RHS)
+    L, Linv, Y = jax.vmap(cholesky_inverse_apply)(K, RHS)
     np.testing.assert_allclose(
         np.asarray(L), np.asarray(jnp.linalg.cholesky(K)), atol=1e-11,
         rtol=1e-11,
@@ -179,10 +177,7 @@ def test_chol_inv_apply_fused(n, r):
 
 
 def test_chol_inv_apply_custom_vmap():
-    """vmapped cholesky_inverse_apply dispatches the fused kernel and
-    agrees with the unbatched fallback composition."""
-    from piqp_tpu.ops.pallas_chol import cholesky_inverse_apply
-
+    """vmapped cholesky_inverse_apply agrees with unbatched calls."""
     B, n, r = 4, 24, 52
     K = _spd_batch(B, n, jnp.float64, seed=7)
     rng = np.random.default_rng(9)

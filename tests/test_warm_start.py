@@ -1,5 +1,5 @@
 """Warm-started re-solves (no reference analog: the reference cold-starts
-every solve, solver.hpp:398-577; warm starting is a TPU-native addition
+every solve, solver.hpp:398-577; warm starting is an addition
 serving the batched MPC/SQP regime — see solver._warm_vars).
 
 Covers: iteration-count reduction and solution agreement after small data

@@ -8,7 +8,7 @@ reproduce its factor/solve results and full IPM solutions.
 NOTE: named test_zz_* so these run LAST.  On the forced-host-platform CPU
 backend, running shard_map collectives leaves the process in a state where
 a later large XLA *compilation* can segfault (upstream jaxlib issue,
-reproduced deterministically with this suite; real-TPU and standalone runs
+reproduced deterministically with this suite; GPU and standalone runs
 are unaffected).  Keeping the mesh tests at the end means no compilation
 follows them in-process.
 """
